@@ -2,8 +2,7 @@
 
 Runs every compute engine on a 180 s mono 44.1 kHz song and reports
 measured on-device time per pass (summed jit_* program durations from a
-jax.profiler trace — see bench.py for why wall-clock is not trustworthy on
-remote-dispatch platforms).  Prints one JSON object.
+jax.profiler trace, as bench.py measures).  Prints one JSON object.
 
 Usage: python bench_engines.py
 """
@@ -51,9 +50,13 @@ def main() -> None:
     from melonix_tpu.engine.phase_vocoder import render_track_pv
     from melonix_tpu.engine.pitch import pitch_curve
     from melonix_tpu.engine.render import build_render_plan, render
-    from melonix_tpu.engine.spectral import hann_window, num_frames, stft_mags_device
+    from melonix_tpu.engine.spectral import (
+        hann_window,
+        num_frames,
+        spectrogram_columns_device,
+        stft_mags_device,
+    )
     from melonix_tpu.io.resample import resample
-    from melonix_tpu.kernels.pallas_columns import spectrogram_columns_fused
 
     sr = 44100
     seconds = 180.0
@@ -114,8 +117,9 @@ def main() -> None:
     ends = jnp.asarray(rng.integers(cfg.spectr_size, len(x), 256).astype(np.int32))
     starts = ends - 4410
     results["reference_columns_256x32768_ms"] = round(_trace_ms(
-        lambda: o.__setitem__(0, spectrogram_columns_fused(wav_dev, starts, ends, 16384.0)),
-        lambda: int(np.asarray(o[0][0, :4]).sum()),
+        lambda: o.__setitem__(0, spectrogram_columns_device(
+            wav_dev, starts, ends, size=cfg.spectr_size)),
+        lambda: float(np.asarray(o[0][0, :4]).sum()),
     ), 3)
 
     for k, v in list(results.items()):

@@ -1,17 +1,17 @@
-"""melonix_tpu — a TPU-native audio pitch-editing framework.
+"""melonix_tpu — an accelerator-native audio pitch-editing framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of mika314/melonix
+A ground-up JAX/XLA rebuild of the capabilities of mika314/melonix
 (see SURVEY.md): spectrogram analysis, marker-based time-warp/pitch-bend
 editing, granular and phase-vocoder rendering, batched pitch detection,
-project persistence, and a thin host UI — with the compute path designed for
-TPU (batched device programs, MXU matmul FFTs, mesh sharding) rather than the
-reference's per-column CPU worker threads.
+project persistence, and a thin host UI — with the compute path designed
+for an accelerator (batched device programs, batched FFTs, mesh sharding)
+rather than the reference's per-column CPU worker threads.
 """
 
 from .runtime.compile_cache import enable as _enable_compile_cache
 
 # Persist XLA executables across processes before anything can compile —
-# the TPU analogue of the reference building its FFTW plan once at startup
+# the device analogue of the reference building its FFTW plan once at startup
 # (spec.cpp:15) instead of re-deriving it per run.
 _enable_compile_cache()
 

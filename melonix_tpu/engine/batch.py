@@ -10,7 +10,7 @@ edit model:
   ``parallel.sharded.data_parallel_render`` / ``data_parallel_pv`` with
   per-track edits bucketed to shared static shapes (the BASELINE config #5
   machinery applied across files instead of channels);
-* on a single chip it loops the per-track fast path (Pallas kernels).
+* on a single device it loops the per-track path (``render_session``).
 
 Jobs pad to the longest track in the batch; callers with wildly mixed
 lengths should bucket first (the CLI ``batch`` command groups by sample
@@ -105,25 +105,13 @@ def render_batch(
                 for t, ms in zip(tracks, markers_list)
             ]
         kw, ops = pv_batch_args(plans)
-        # Fused Mosaic kernels inside the sharded program (VERDICT r3 #3):
-        # per-row analysis + synth_ola_phase replace the XLA rfft path
-        # whenever the shapes allow; locked renders need natural order.
-        import jax
-
-        from .phase_vocoder import pv_fused_shapes_ok
-
-        on_tpu = jax.default_backend() == "tpu"
-        fused = (
-            on_tpu and not phase_locking
-            and pv_fused_shapes_ok(kw["size"], kw["hop"], kw["n_frames"])
-        )
         f = data_parallel_pv(use_mesh, **kw, formant=bool(preserve_formants),
-                             lock=bool(phase_locking), fused=fused)
+                             lock=bool(phase_locking))
         win = jnp.asarray(hann_window(kw["size"]))
         out_b = f(jnp.asarray(wav_b), *[jnp.asarray(o) for o in ops[:4]], win,
                   *[jnp.asarray(o) for o in ops[4:]])
         # Download each track sliced to its live length: pad rows and zero
-        # tails never cross the (slow, variable) device->host link.
+        # tails never cross the device->host link.
         return [np.asarray(out_b[b, : plans[b].n_out])
                 for b in range(len(tracks))]
 

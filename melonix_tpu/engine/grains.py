@@ -7,7 +7,7 @@ samples before are < 0 and after are >= 0 (app.cpp:163-193, look_around=7);
 if none is found within ±(preferred/2 - 1), a fallback scans linearly from
 ``start + 1.5 * preferred`` with look_around=3 (app.cpp:194-231).
 
-TPU-first decomposition: the O(N·look) crossing *masks* are pure elementwise
+Host/device decomposition: the O(N·look) crossing *masks* are pure elementwise
 reductions and run on device in one shot (``zero_crossing_mask_jax``); the
 inherently sequential chain "next start depends on previous grain end" is a
 tiny control-plane loop over ~N/1500 steps that runs on host NumPy (or the

@@ -50,30 +50,26 @@ def _parabolic(y: jnp.ndarray, i: jnp.ndarray, eps: float):
     return jnp.clip(d, -0.5, 0.5), y0
 
 
-def pitch_core(w: jnp.ndarray, frame: int, lag_min: int, lag_max: int,
-               ac: jnp.ndarray | None = None):
+def pitch_core(w: jnp.ndarray, frame: int, lag_min: int, lag_max: int):
     """NSDF pitch analysis of mean-subtracted frames ``w`` (F, frame).
 
     Returns (lag, clarity, energy) per frame.  Pure function of the frame
-    matrix so both the single-chip path and the seq-sharded multi-chip path
-    (parallel/sharded.sharded_pitch) share one implementation.  ``ac``
-    optionally supplies the per-frame linear autocorrelation (the fused
-    kernel below computes it in VMEM); otherwise it is derived here.
+    matrix so both the single-device path and the seq-sharded multi-device
+    path (parallel/sharded.sharded_pitch) share one implementation.
     """
     n_frames = w.shape[0]
-    if ac is None:
-        # McLeod's NSDF: linear autocorrelation via zero-padded rFFT
-        # (Wiener-Khinchin), normalized by the running energy term
-        # m(τ) = Σ x²[j] + x²[j+τ] so a tapering window isn't needed and
-        # the peak lag is unbiased.
-        spec = jnp.fft.rfft(w, n=2 * frame)
-        power = spec.real**2 + spec.imag**2
-        ac = jnp.fft.irfft(power, n=2 * frame)[:, :frame]  # (F, frame) r(τ)
+    # McLeod's NSDF: linear autocorrelation via zero-padded rFFT
+    # (Wiener-Khinchin), normalized by the running energy term
+    # m(τ) = Σ x²[j] + x²[j+τ] so a tapering window isn't needed and
+    # the peak lag is unbiased.
+    spec = jnp.fft.rfft(w, n=2 * frame)
+    power = spec.real**2 + spec.imag**2
+    ac = jnp.fft.irfft(power, n=2 * frame)[:, :frame]  # (F, frame) r(τ)
     csum = jnp.cumsum(w * w, axis=1)
     total = csum[:, -1:]
     # Σ_{j<W-τ} x²[j] = E[W-τ-1] = csum reversed; Σ_{j>=τ} x²[j] =
-    # total - E[τ-1] = total - csum shifted.  Flip/shift, NOT gathers —
-    # take_along_axis here costs ~7.5ns per element (~1s for a 3-min track).
+    # total - E[τ-1] = total - csum shifted.  Flip/shift, not a
+    # (frames x lags) take_along_axis gather.
     head = jnp.flip(csum, axis=1)
     tail_prev = jnp.concatenate(
         [jnp.zeros((n_frames, 1), csum.dtype), csum[:, :-1]], axis=1
@@ -160,18 +156,6 @@ def _pitch_device(
     lag_min: int,
     lag_max: int,
 ):
-    from ..kernels import pallas_pitch
-
-    if (
-        jax.default_backend() == "tpu"
-        and pallas_pitch.supported(frame, hop, n_frames)
-    ):
-        # Fused kernel: fetch + mean-subtract + rfft -> power -> irfft all
-        # in VMEM (the two 4096-pt XLA FFTs are ~28 of this engine's
-        # 30.7 ms; the kernel's scrambled-bin four-step DFTs make the
-        # round trip order-free since power is elementwise).
-        ac, w = pallas_pitch.pitch_ac_pallas(wav, frame, hop, n_frames)
-        return pitch_core(w, frame, lag_min, lag_max, ac=ac)
     return pitch_core(_centered_frames(wav, frame, hop, n_frames),
                       frame, lag_min, lag_max)
 

@@ -6,7 +6,7 @@ samples, each next level from pairs of the previous (app.cpp:347-378);
 queried per screen pixel through a recursive combiner (app.cpp:380-426) and
 memoized per-pixel (app.cpp:451-465).
 
-TPU-first: the build is a chain of pairwise reduces — one jitted device
+Device build: the build is a chain of pairwise reduces — one jitted device
 program produces every level in a single pass over HBM; the host keeps the
 downloaded pyramid (~N floats total) for interactive per-pixel queries, which
 are answered *exactly* with a vectorized bottom-up segment decomposition

@@ -10,7 +10,7 @@ the output duration back through the warp map (app.cpp:312-329).  The offline
 export (app.cpp:1194-1215) chains ``process`` from t=0 until the grain table
 is exhausted, then emits ``preferred_grain_size`` zeros.
 
-TPU-first decomposition:
+Host/device decomposition:
 
 * **Plan (host, NumPy)** — the cursor chain is sequential but tiny
   (~N/1500 steps, O(log markers) each): it touches only the grain table and
@@ -200,13 +200,12 @@ def render_device(
     fix_idx: jnp.ndarray,  # int32 (K,) seam-fix output positions (out_len = drop)
     fix_val: jnp.ndarray,  # float32 (K,)
 ) -> jnp.ndarray:
-    """Two-gather granular render (the fast path).
+    """Two-gather granular render.
 
-    TPU gathers cost ~7.5 ns/element, so per-step values must not be
-    gathered per sample.  Each per-step constant becomes a *segmented
-    broadcast*: scatter its successive differences at the segment-start
-    output positions, prefix-sum (int32 cumsum: ~2 ms for 8M samples, 30x
-    cheaper than a gather).  Rates stay bit-exact through the sum by
+    Per-step values are not gathered per sample.  Each per-step constant
+    becomes a *segmented broadcast*: scatter its successive differences at
+    the segment-start output positions, then prefix-sum (an int32 cumsum,
+    exact in any summation order).  Rates stay bit-exact through the sum by
     broadcasting their int32 BIT PATTERNS (wrapping integer arithmetic) and
     bitcasting back to float32.  Only the two waveform reads (lo/hi) remain
     as real gathers.  The next-grain seam (app.cpp:312-329) is wav[src+1]
@@ -314,64 +313,6 @@ def render(
         return np.zeros(total, np.float32)
     out_len = _round_up(total, pad_to)
     wav_np = np.asarray(wav, np.float32)
-
-    from ..kernels import pallas_render
-
-    if jax.default_backend() == "tpu" and pallas_render.plan_supported(plan):
-        # Gather-free Pallas path: per-step DMA + lane-gather resample.
-        if plan.n_steps <= pallas_render.MAX_STEPS:
-            args, gmax, szmax = pallas_render.args_for(plan, wav_np, out_len)
-            gs_d, rate_d, sz_d, offs_host, _ol, fi_d, fv_d = args
-            out = pallas_render.render_pallas_full(
-                jnp.asarray(wav_np), gs_d, rate_d, sz_d,
-                offs_host, out_len, fi_d, fv_d,
-                gmax=gmax, szmax=szmax,
-            )
-            return np.asarray(out[:total])
-        # Hour-scale plans: render SMEM-sized chunks of steps; spans are
-        # disjoint, so the host just assembles the slices.  Chunks pad to
-        # one static (steps, chunk_len) shape so all chunks share a compile
-        # (padding steps have sz=0 and park their zero blocks in the
-        # compact buffer's slack region past chunk_len).
-        gmax, szmax = pallas_render._buckets(plan)
-        fix_idx, fix_val = seam_fixes(plan, wav_np, out_len)
-        wav_dev = jnp.asarray(wav_np)
-        host_out = np.zeros(total, np.float32)
-        chunks = pallas_render.plan_chunks(plan)
-        max_span = max(o1 - o0 for _, _, o0, o1 in chunks)
-        chunk_len = szmax * -(-max_span // szmax) + szmax
-        s_max = pallas_render.MAX_STEPS
-        no_fix = jnp.asarray(np.full(1, chunk_len, np.int32))
-        no_fix_val = jnp.asarray(np.zeros(1, np.float32))
-        for lo, hi, o0, o1 in chunks:
-            pad = s_max - (hi - lo)
-            gs_c = np.pad(plan.grain_start[lo:hi].astype(np.int32), (0, pad))
-            rt_c = np.pad(
-                plan.rate[lo:hi].astype(np.float32), (0, pad), constant_values=1.0
-            )
-            sz_c = np.pad(plan.sz[lo:hi].astype(np.int32), (0, pad))
-            offs_c = np.pad(
-                (plan.out_offset[lo:hi] - o0).astype(np.int32),
-                (0, pad),
-                constant_values=chunk_len,
-            )
-            out_c = pallas_render.render_pallas_full(
-                wav_dev,
-                jnp.asarray(gs_c),
-                jnp.asarray(rt_c),
-                jnp.asarray(sz_c),
-                offs_c,
-                chunk_len,
-                no_fix,
-                no_fix_val,
-                gmax=gmax,
-                szmax=szmax,
-            )
-            end = min(o1, total)
-            host_out[o0:end] = np.asarray(out_c[: end - o0])
-        sel = fix_idx < total
-        host_out[fix_idx[sel]] = fix_val[sel]
-        return host_out
     offs, gs, rb, n_valid, _, fix_idx, fix_val = render_device_args(plan, wav_np, out_len)
     out = render_device(
         jnp.asarray(wav_np),

@@ -11,8 +11,9 @@ Routing: one plan always; with more than one device the channels render as
 ONE batched device program sharded over the mesh's ``data`` axis
 (``parallel.sharded.data_parallel_render`` for the granular engine,
 ``render_channels_pv`` for the phase vocoder) — the batched-session path of
-BASELINE config #5.  On a single chip the per-channel kernels (Pallas
-granular / lane-gather PV resample) are the fast path and are kept.
+BASELINE config #5.  On a single device the granular engine loops the
+channels through the one shared plan and the phase vocoder batches them
+in one vmapped program.
 
 A MONO track with an EXPLICIT mesh routes through the sequence-parallel
 renderers instead (``seq_parallel_render`` / ``seq_parallel_pv`` — the
@@ -103,38 +104,22 @@ def _render_mono_pv_seq(mono, knots, mesh, config, preserve_formants,
     """ONE track's PV render with stretch frames sharded over ``seq``.
     Returns None when the track is too short for the shard count (each
     shard must cover the OLA spill) so the caller falls back.
-
-    On TPU the per-shard analysis/synthesis runs through the fused Mosaic
-    kernels when the shapes allow (VERDICT r3 #3); locked renders and
-    other shapes use the natural-order XLA body.
     """
-    import jax
     import jax.numpy as jnp
 
-    from ..kernels import pallas_pv
     from ..parallel.sharded import seq_parallel_pv, seq_pv_args
     from .phase_vocoder import build_pv_plan
     from .spectral import hann_window
 
     plan = build_pv_plan(knots, len(mono), config=config)
     if plan is None:
-        return None  # empty/degenerate: the single-chip path handles it
+        return None  # empty/degenerate: the single-device path handles it
     n_seq = mesh.shape["seq"]
-    on_tpu = jax.default_backend() == "tpu"
-    from .phase_vocoder import pv_fused_shapes_ok
-
-    fused = (
-        on_tpu
-        and not phase_locking
-        and pv_fused_shapes_ok(plan.size, plan.hop)
-    )
-    kw, ops = seq_pv_args(plan, n_seq,
-                          frame_quantum=pallas_pv.G if fused else 1)
+    kw, ops = seq_pv_args(plan, n_seq)
     if (kw["n_frames"] // n_seq) * plan.hop < plan.size - plan.hop:
         return None  # shard span shorter than the OLA spill: fall back
     f = seq_parallel_pv(mesh, **kw, formant=bool(preserve_formants),
-                        lock=bool(phase_locking), fused=fused,
-                        interpret=not on_tpu and fused)
+                        lock=bool(phase_locking))
     win = jnp.asarray(hann_window(kw["size"]))
     out = f(
         jnp.asarray(mono), *[jnp.asarray(o) for o in ops[:4]],

@@ -7,16 +7,11 @@ attenuated by an exponential decay ``exp(-2.5e-4 * (start - i))`` (NOT a Hann
 window), out-of-bounds samples are zero, and the output is the magnitude of
 the first 16384 bins normalized by 32768.
 
-The TPU design inverts this: *batch all requested columns into one jitted
-program* — a fused gather (frame extraction) + decay mask + batched FFT +
-magnitude.  A whole 4K-wide viewport is one device call instead of 4000
-incremental FFTW jobs, and whole-track pyramids are one big batch.
-
-Two FFT backends:
-  * ``jnp.fft.fft`` — XLA's native FFT;
-  * a four-step (Bailey) factorization that maps the DFT onto MXU matmuls
-    (kernels/fftmm.py) — on TPU the 128x-sized factor matmuls run on the
-    systolic array and typically beat the generic FFT for batched work.
+The device design inverts this: *batch all requested columns into one
+jitted program* — a fused gather (frame extraction) + decay mask + batched
+FFT + magnitude.  A whole 4K-wide viewport is one device call instead of
+4000 incremental FFTW jobs, and whole-track pyramids are one big batch.
+The FFT is XLA's (cuFFT on a GPU).
 
 A modern Hann STFT mode (2048-pt, 75% overlap; BASELINE.json configs) is also
 provided for the phase-vocoder and pitch engines.
@@ -31,7 +26,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import DEFAULT_CONFIG, Config
-from ..kernels.fftmm import fft_matmul
 
 
 def _extract_frames(wav: jnp.ndarray, start: jnp.ndarray, end: jnp.ndarray, size: int):
@@ -52,13 +46,12 @@ def _extract_frames(wav: jnp.ndarray, start: jnp.ndarray, end: jnp.ndarray, size
     return jnp.where(in_bounds, vals * decay, 0.0)
 
 
-@partial(jax.jit, static_argnames=("size", "backend"))
+@partial(jax.jit, static_argnames=("size",))
 def spectrogram_columns_device(
     wav: jnp.ndarray,
     start: jnp.ndarray,
     end: jnp.ndarray,
     size: int = DEFAULT_CONFIG.spectr_size,
-    backend: str = "fft",
 ) -> jnp.ndarray:
     """Batched reference-parity spectrogram columns.
 
@@ -66,10 +59,7 @@ def spectrogram_columns_device(
     (spec.cpp:62-64).
     """
     frames = _extract_frames(wav, start, end, size)
-    if backend == "matmul":
-        spec = fft_matmul(frames.astype(jnp.complex64))
-    else:
-        spec = jnp.fft.fft(frames)
+    spec = jnp.fft.fft(frames)
     mags = jnp.abs(spec[:, : size // 2]) / size
     return mags.astype(jnp.float32)
 
@@ -79,7 +69,6 @@ def spectrogram_columns(
     starts,
     ends,
     config: Config = DEFAULT_CONFIG,
-    backend: str = "fft",
 ) -> np.ndarray:
     """Host convenience wrapper: NumPy in, NumPy out."""
     wav_dev = jnp.asarray(wav, jnp.float32)
@@ -88,7 +77,6 @@ def spectrogram_columns(
         jnp.asarray(starts, jnp.int32),
         jnp.asarray(ends, jnp.int32),
         size=config.spectr_size,
-        backend=backend,
     )
     return np.asarray(out)
 
@@ -172,21 +160,11 @@ def stft_mags_device(
     n_frames: int,
     scale: float = 1.0,
 ) -> jnp.ndarray:
-    """Fused ``|STFT|`` of the first size//2 bins — (n_frames, size//2) f32.
+    """``|STFT|`` of the first size//2 bins — (n_frames, size//2) f32.
 
-    On TPU with kernel-friendly shapes this is a fused Pallas
-    frame+window+DFT+magnitude kernel — preferring the four-step bf16x3
-    factorization (kernels/pallas_pv.stft_mag_fourstep, ~3x the dense
-    HIGHEST kernel at -96 dB), falling back to the dense-matmul kernel
-    (kernels/pallas_stft.py) for other sizes; otherwise XLA rfft + |.|.
+    XLA rfft + |.|: the frame gather fuses into the FFT's input producer
+    and the magnitude into its consumer.
     """
-    from ..kernels import pallas_pv, pallas_stft
-
-    on_tpu = jax.default_backend() == "tpu"
-    if pallas_pv.stft_supported(size, hop) and on_tpu:
-        return pallas_pv.stft_mag_fourstep(wav, window, size, hop, n_frames, scale=scale)
-    if pallas_stft.supported(size, hop) and on_tpu:
-        return pallas_stft.stft_mag_pallas(wav, window, size, hop, n_frames, scale=scale)
     spec = stft_device(wav, window, size, hop, n_frames)
     return (jnp.abs(spec[:, : size // 2]) * scale).astype(jnp.float32)
 
@@ -202,7 +180,7 @@ def stft(wav, config: Config = DEFAULT_CONFIG, *, size=None, hop=None):
     return np.asarray(out), hop
 
 
-@partial(jax.jit, static_argnames=("size", "hop", "out_len", "normalize", "packed"))
+@partial(jax.jit, static_argnames=("size", "hop", "out_len", "normalize"))
 def istft_device(
     frames: jnp.ndarray,
     window: jnp.ndarray,
@@ -210,7 +188,6 @@ def istft_device(
     hop: int,
     out_len: int,
     normalize: bool = True,
-    packed: bool | None = None,
 ) -> jnp.ndarray:
     """Overlap-add inverse STFT with window-square normalization.
 
@@ -218,23 +195,10 @@ def istft_device(
     overlap-add is *scatter-free*: frames ``g::k`` for each of the
     ``k = size // hop`` phase groups are non-overlapping, so each group
     reshapes directly into a contiguous signal and the k shifted groups
-    add elementwise.  A 32M-element ``.at[].add`` scatter costs ~7.5 ns per
-    element on TPU (~240 ms for a 3-minute track); the stacked reshape is
-    pure bandwidth.
-
-    ``packed`` selects the half-size packed c2r inverse (kernels/packfft.py;
-    XLA's TPU c2r lowers to a full-size complex FFT, the packed form is
-    ~1.5x faster there — the forward r2c is already half-size internally,
-    so only the inverse uses it).  Default: on for TPU, off elsewhere.
+    add elementwise — pure bandwidth, where a 32M-element ``.at[].add``
+    scatter would serialize on colliding indices.
     """
-    if packed is None:
-        packed = jax.default_backend() == "tpu"
-    if packed and size % 2 == 0:
-        from ..kernels.packfft import irfft_packed
-
-        t = irfft_packed(frames, size)  # (F, size)
-    else:
-        t = jnp.fft.irfft(frames, n=size)
+    t = jnp.fft.irfft(frames, n=size)
     return ola_device(t, window, size, hop, out_len, normalize)
 
 
@@ -248,8 +212,8 @@ def ola_device(
     pre_windowed: bool = False,
 ) -> jnp.ndarray:
     """The overlap-add half of istft_device, for callers that produce the
-    time-domain frames themselves (e.g. the fused PV synthesis kernel,
-    which also applies the synthesis window in-kernel: pre_windowed)."""
+    time-domain frames themselves (``pre_windowed``: the synthesis window
+    is already applied)."""
     n_frames = t.shape[0]
     if not pre_windowed:
         t = t * window[None, :]

@@ -13,14 +13,14 @@ whole resampler into
 
 where ``X2`` is the padded source viewed as (rows, down) — a *reshape*, not
 a gather — and ``H_r`` are small host-built (down, up) filter banks (r
-ranges over the few source rows a tap window spans).  On TPU this is a
-handful of MXU matmuls: ~5 GFLOP for a 3-minute 44.1->48 kHz conversion,
-versus ~540M 7.5-ns gathers (4.8 s) for the naive per-output gather
-formulation.  ~80 dB stopband at the default 64 taps / Kaiser beta 8.6;
-the kernel stretches by the decimation ratio when downsampling.
+ranges over the few source rows a tap window spans).  That is a handful
+of dense matmuls: ~5 GFLOP for a 3-minute 44.1->48 kHz conversion, where
+the naive per-output formulation needs ~540M gathers.  ~80 dB stopband at
+the default 64 taps / Kaiser beta 8.6; the kernel stretches by the
+decimation ratio when downsampling.
 
-Deliberately NOT an FFT resampler: track lengths are arbitrary, and XLA
-lowers non-smooth-length FFTs on TPU to a dense O(n^2) DFT matmul.
+Deliberately NOT an FFT resampler: track lengths are arbitrary, and an FFT
+of a non-smooth length is slow or falls back to a dense O(n^2) DFT.
 """
 
 from __future__ import annotations
@@ -82,8 +82,9 @@ def _polyphase_device(x2, banks, m_out: int, down: int, front_rows: int):
     """x2: (C, rows, down) padded source view; banks (R, down, up)."""
     del down, front_rows  # encoded in the shapes / bank construction
     r_shifts = banks.shape[0]
-    # precision=HIGHEST: the default TPU matmul precision is bf16-class and
-    # would cap the resampler at ~-48 dB, defeating the 80 dB Kaiser design.
+    # precision=HIGHEST: a default-precision f32 matmul may run in bf16 or
+    # TF32 on an accelerator, which would cap the resampler far above its
+    # 80 dB Kaiser design.
     acc = jnp.einsum(
         "crd,du->cru", x2[:, 0:m_out], banks[0],
         preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,

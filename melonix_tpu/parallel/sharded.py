@@ -1,17 +1,19 @@
 """Multi-chip sharding of the analysis/render pipeline.
 
 The reference's only concurrency is three host threads (SURVEY.md §1); this
-module is the TPU-native replacement: SPMD over a ``jax.sharding.Mesh`` with
-two axes —
+module is the device-native replacement: SPMD over a ``jax.sharding.Mesh``
+with two axes —
 
 * ``data``  — batch of tracks / sessions (batched session render,
   BASELINE.json config #5): pure data parallelism, no communication.
 * ``seq``   — the sample/frame axis *within* a track (the "long-track"
   dimension, SURVEY.md §5 long-context analogue): frames are sharded
   contiguously and the STFT window overlap crossing shard boundaries is
-  satisfied by a one-hop ``ppermute`` halo exchange over ICI — the same
+  satisfied by a one-hop ``ppermute`` halo exchange — the same
   neighbor-block-passing primitive as ring attention, applied to
-  overlap-save spectral analysis.
+  overlap-save spectral analysis.  The mesh follows the algorithm: every
+  device pair is assumed equally close, so axis order carries no
+  topology.
 
 Everything is expressed with ``jax.shard_map`` so XLA sees static local
 shapes and inserts exactly the collectives we ask for.
@@ -439,11 +441,9 @@ def data_parallel_pv(
     formant: bool = False,
     n_ceps: int = 40,
     lock: bool = False,
-    fused: bool = False,
-    interpret: bool = False,
 ):
     """Jitted full PV render (stretch → normalize → resample) of a batch of
-    tracks sharded over ``data`` — the quality engine's multi-chip path
+    tracks sharded over ``data`` — the quality engine's multi-device path
     (VERDICT weak #6).
 
     Single-chunk formulation: every track's frame plan fits one stretch
@@ -456,13 +456,13 @@ def data_parallel_pv(
     anc_j_b, src_b, r_b, s_b, base_b) -> (B, n_out_pad) rendered audio.
     """
     from ..engine.phase_vocoder import (
+        BLK,
         _lerp_resample_rel_xla,
         _positions_rel_device,
         _stretch_chunk_core,
     )
-    from ..kernels.pallas_resample import BLK
 
-    n_bins = size if fused else size // 2 + 1
+    n_bins = size // 2 + 1
 
     def step(wav_b, starts_b, da_b, rho_b, f_real_b, window,
              anc_j_b, src_b, r_b, s_b, base_b):
@@ -471,9 +471,8 @@ def data_parallel_pv(
                 z = jnp.zeros(n_bins, jnp.float32)
                 y, _, _, _ = _stretch_chunk_core(
                     w1, st1, da1, rho1, win, jnp.int32(0), fr1, z, z, z,
-                    size=size, hop=hop, n_frames_c=n_frames, use_pallas=False,
-                    formant=formant, n_ceps=n_ceps, fused=fused, lock=lock,
-                    interpret=interpret,
+                    size=size, hop=hop, n_frames_c=n_frames,
+                    formant=formant, n_ceps=n_ceps, lock=lock,
                 )
                 y = y[:stretch_len] / _wsum_masked(
                     win, fr1, size, hop, n_frames, stretch_len
@@ -481,17 +480,6 @@ def data_parallel_pv(
                 src_rel = _positions_rel_device(aj1, sb1, rb1, ss1, n_out_pad, sr)
                 return _lerp_resample_rel_xla(y, src_rel, bb1, stretch_len, BLK)
 
-            if fused:
-                # The fused Mosaic kernels (pallas_pv.analysis +
-                # synth_ola_phase) are single-track programs with
-                # scalar-prefetch grids — no batching rule — so the
-                # per-device rows loop in Python (rows-per-device is
-                # static and small; each row reuses the same kernel).
-                return jnp.stack([
-                    one(w[r], st[r], da[r], rho[r], fr[r], aj[r], sb[r],
-                        rb[r], ssb[r], bb[r])
-                    for r in range(w.shape[0])
-                ])
             return jax.vmap(one)(w, st, da, rho, fr, aj, sb, rb, ssb, bb)
 
         return jax.shard_map(
@@ -499,11 +487,6 @@ def data_parallel_pv(
             mesh=mesh,
             in_specs=(P("data"),) * 5 + (P(),) + (P("data"),) * 5,
             out_specs=P("data"),
-            # JAX's pallas INTERPRET mode cannot thread varying-axes
-            # metadata through its internal while_loop (Mosaic can — the
-            # kernels' out_shapes carry vma and the real-chip composition
-            # runs with the check ON; bench._sharded_pallas_compose_ms).
-            check_vma=not (fused and interpret),
         )(wav_b, starts_b, da_b, rho_b, f_real_b, window,
           anc_j_b, src_b, r_b, s_b, base_b)
 
@@ -583,7 +566,7 @@ def pv_batch_args(plans, mesh=None):
 # sharded over `seq` (SURVEY §5's frame-axis sharding mandate; VERDICT
 # round 2, next #4).  The chunked path proved the decomposition is exact —
 # phase propagation is a prefix sum, OLA is linear — so distributing it is
-# the same carry math over ICI:
+# the same carry math, moved by collectives:
 #
 #   * analysis phases:  each shard's first frame needs its LEFT
 #     neighbor's last analysis phase — one-hop ``ppermute``;
@@ -611,29 +594,17 @@ def seq_parallel_pv(
     formant: bool = False,
     n_ceps: int = 40,
     lock: bool = False,
-    fused: bool = False,
-    interpret: bool = False,
 ):
     """Jitted seq-sharded PV render of ONE track.
 
     Returns f(wav, starts, da, rho, f_real, window, anc_j, src_b, r_b,
     s_b, base) -> (n_out_pad,) audio.  ``starts/da/rho`` are the PVPlan
     frame arrays padded to ``n_frames``; ``f_real`` masks the live count.
-    Use ``seq_pv_args`` to build the operands from a PVPlan.
-
-    ``fused`` routes each shard's analysis and synthesis through the
-    Mosaic kernels (pallas_pv.analysis + synth_ola) with the distributed
-    phase pipeline — neighbor ppermute of the last analysis phase, local
-    cumsum + all_gather carry, exact int-mod ramp — running in XLA in the
-    four-step's SCRAMBLED bin order (every op is elementwise over bins,
-    so only the omega/bin-index constants change; Hermitian pairs stay
-    exact mirrors).  ``lock`` applies identity phase locking; under
-    ``fused`` the scrambled spectrum unscrambles through a free XLA
-    transpose (flat column r*N1+c holds bin r+N2*c, so natural order is
-    exactly the (N2, N1) -> (N1, N2) swap), locks on the full spectrum,
-    and transposes back.
+    Use ``seq_pv_args`` to build the operands from a PVPlan.  ``lock``
+    applies identity phase locking (a per-frame transform, shard-local).
     """
     from ..engine.phase_vocoder import (
+        BLK,
         _formant_gain,
         _lerp_resample_rel_xla,
         _positions_rel_device,
@@ -641,17 +612,12 @@ def seq_parallel_pv(
         identity_lock,
     )
     from ..engine.spectral import istft_device
-    from ..kernels import pallas_pv
-    from ..kernels.pallas_resample import BLK
 
     n_seq = mesh.shape["seq"]
     assert n_frames % n_seq == 0, (n_frames, n_seq)
     f_loc = n_frames // n_seq
     assert f_loc * hop >= size - hop, "shard span shorter than the OLA spill"
-    if fused:
-        assert pallas_pv.supported(size, f_loc), (size, f_loc)
-        assert hop % 128 == 0 and size % hop == 0 and hop < size, (size, hop)
-    n_bins = size if fused else size // 2 + 1
+    n_bins = size // 2 + 1
     L = n_frames * hop  # fully-covered stretched span (tail pad excluded)
 
     def stretch_body(wav, starts_l, da_l, rho_l, f_real, window, wsum_l):
@@ -660,26 +626,16 @@ def seq_parallel_pv(
         starts_l, da_l, rho_l = starts_l[0], da_l[0], rho_l[0]
         n = wav.shape[0]
 
-        if fused:
-            # Fused fetch+window+DFT (scrambled order, full size bins).
-            re, im = pallas_pv.analysis(wav, starts_l, window, size,
-                                        interpret=interpret)
-            mag = jnp.sqrt(re * re + im * im)
-            phi = jnp.arctan2(im, re)
-            omega = jnp.asarray(pallas_pv.scrambled_omega(size))
-            k_idx = jnp.asarray(pallas_pv.scrambled_bins(size))
-        else:
-            # Analysis (frame fetch from the replicated track + rFFT).
-            gidx = starts_l[:, None] + jnp.arange(size, dtype=jnp.int32)[None, :]
-            frames = jnp.where(gidx < n, wav[jnp.clip(gidx, 0, n - 1)], 0.0)
-            spec = jnp.fft.rfft(frames * window[None, :])
-            mag = jnp.abs(spec)
-            phi = jnp.angle(spec)
-            omega = (2.0 * jnp.pi / size) * jnp.arange(n_bins, dtype=jnp.float32)
-            k_idx = jnp.arange(n_bins, dtype=jnp.int32)
+        # Analysis (frame fetch from the replicated track + rFFT).
+        gidx = starts_l[:, None] + jnp.arange(size, dtype=jnp.int32)[None, :]
+        frames = jnp.where(gidx < n, wav[jnp.clip(gidx, 0, n - 1)], 0.0)
+        spec = jnp.fft.rfft(frames * window[None, :])
+        mag = jnp.abs(spec)
+        phi = jnp.angle(spec)
+        omega = (2.0 * jnp.pi / size) * jnp.arange(n_bins, dtype=jnp.float32)
+        k_idx = jnp.arange(n_bins, dtype=jnp.int32)
         if formant:
-            mag = mag * _formant_gain(mag, rho_l, size, size // 2 + 1,
-                                      n_ceps, scrambled=fused)
+            mag = mag * _formant_gain(mag, rho_l, size, n_bins, n_ceps)
 
         # Left neighbor's last analysis phase seeds my first frame's diff.
         perm_r = [(i, (i + 1) % nsh) for i in range(nsh)]
@@ -704,8 +660,7 @@ def seq_parallel_pv(
 
         # psi = phi(global frame 0) + exact int-mod linear ramp + residual
         # (float32 ramp sums overflow ulp at minute scale — see
-        # _stretch_chunk_core; for scrambled negative-frequency bins the
-        # ramp is identical mod 2pi: hm*(k - size) == hm*k mod size).
+        # _stretch_chunk_core).
         phi0 = jax.lax.psum(
             jnp.where(idx == 0, phi[0], jnp.zeros_like(phi[0])), "seq"
         )
@@ -717,29 +672,14 @@ def seq_parallel_pv(
 
         if lock:
             # Per-frame transform: shard-local by construction.
-            if fused:
-                n2, n1 = pallas_pv.N2, pallas_pv.N1
-                unscr = lambda a: a.reshape(-1, n2, n1).swapaxes(1, 2) \
-                    .reshape(-1, size)
-                rescr = lambda a: a.reshape(-1, n1, n2).swapaxes(1, 2) \
-                    .reshape(-1, size)
-                psis = rescr(identity_lock(
-                    unscr(psis), unscr(phi), unscr(mag)))
-            else:
-                psis = identity_lock(psis, phi, mag)
+            psis = identity_lock(psis, phi, mag)
 
         live = (m_global < f_real)[:, None]
         mag_live = jnp.where(live, mag, 0.0)
         out_local = f_loc * hop + (size - hop)
-        if fused:
-            # Streaming inverse-DFT + windowed OLA in one Mosaic kernel;
-            # its flat output is exact for j < (f_loc-1)*hop + size.
-            buf = pallas_pv.synth_ola(mag_live, psis, window, size, hop,
-                                      interpret=interpret)[:out_local]
-        else:
-            synth = mag_live * jnp.exp(1j * psis)
-            buf = istft_device(synth, window, size, hop, out_local,
-                               normalize=False)
+        synth = mag_live * jnp.exp(1j * psis)
+        buf = istft_device(synth, window, size, hop, out_local,
+                           normalize=False)
 
         # OLA seam: my tail overlaps the RIGHT neighbor's head.
         spill = buf[f_loc * hop :]
@@ -757,10 +697,6 @@ def seq_parallel_pv(
         in_specs=(P(), P(None, "seq"), P(None, "seq"), P(None, "seq"),
                   P(), P(), P(None, "seq")),
         out_specs=P(None, "seq"),
-        # Mosaic threads vma through the kernels' out_shapes; only the
-        # pallas INTERPRET mode cannot (JAX limitation — its internal
-        # while_loop drops varying-axes metadata).
-        check_vma=not (fused and interpret),
     )
     resample = jax.shard_map(
         resample_body,
@@ -785,16 +721,14 @@ def seq_parallel_pv(
     return jax.jit(step)
 
 
-def seq_pv_args(plan, n_seq: int, frame_quantum: int = 1):
+def seq_pv_args(plan, n_seq: int):
     """Pad a PVPlan's operands to seq-shardable shapes.
 
     Returns (builder_kw, ops): frame arrays padded to a multiple of
-    ``n_seq * frame_quantum`` (edge frames, masked live by f_real) and
-    the resample side padded to a multiple of ``n_seq * BLK`` output
-    samples.  Pass ``frame_quantum=pallas_pv.G`` for the fused kernels
-    (their grid takes G frames per step per shard).
+    ``n_seq`` (edge frames, masked live by f_real) and the resample side
+    padded to a multiple of ``n_seq * BLK`` output samples.
     """
-    from ..kernels.pallas_resample import BLK
+    from ..engine.phase_vocoder import BLK
 
     # Pad past the shard multiple by a window's worth of frames so the
     # fully-covered span L = n_frames*hop reaches the real stretched tail
@@ -802,8 +736,7 @@ def seq_pv_args(plan, n_seq: int, frame_quantum: int = 1):
     # of the stretch were truncated whenever plan.n_frames already hit
     # the shard multiple (ADVICE r3 #1).  Padded frames are masked live.
     extra = -(-plan.size // plan.hop) - 1
-    q = n_seq * frame_quantum
-    n_frames = q * -(-(plan.n_frames + extra) // q)
+    n_frames = n_seq * -(-(plan.n_frames + extra) // n_seq)
     pad_f = n_frames - plan.n_frames
     starts = np.pad(plan.starts_m, (0, pad_f), mode="edge")
     da = np.pad(plan.da_m, (0, pad_f), constant_values=float(plan.hop))
@@ -834,7 +767,7 @@ def seq_pv_args(plan, n_seq: int, frame_quantum: int = 1):
 
 def _halo_stft_mags(mesh, wav_b, window, size, hop):
     """(B, F, bins) magnitudes: tracks over ``data``, frames over ``seq``,
-    window overlap via one-hop ppermute halo over ICI."""
+    window overlap via one-hop ppermute halo."""
     n_seq = mesh.shape["seq"]
     chunk = wav_b.shape[-1] // n_seq
     halo = size - hop

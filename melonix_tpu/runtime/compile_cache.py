@@ -2,15 +2,15 @@
 
 The reference pays its plan cost once at startup — FFTW_MEASURE builds the
 32768-pt plan when the file opens (/root/reference/spec.cpp:15) — and every
-later column reuses it.  The TPU analogue of that plan is the XLA
+later column reuses it.  The device analogue of that plan is the XLA
 executable, and without a persistent cache every *process* re-pays the
-remote AOT compile of every kernel shape (measured at 246-349 s for a cold
-``render --engine pv`` in round 2).  Two pieces fix that:
+compile of every program shape.  Two pieces fix that:
 
-* ``enable()`` points JAX's compilation cache at a durable directory
-  (``MELONIX_XLA_CACHE_DIR``, default ``~/.cache/melonix_tpu/xla``) before
-  the first compile, so executables persist across processes.  Repeat
-  invocations deserialize instead of recompiling.
+* ``enable()`` points JAX's compilation cache at a durable directory before
+  the first compile, so executables persist across processes and repeat
+  invocations deserialize instead of recompiling.  The directory is
+  ``JAX_COMPILATION_CACHE_DIR`` when that is set (the package then names no
+  other), else the fixed ``.jax_cache/`` at the root of the checkout.
 * ``warmup_session(n, rate)`` compiles the standard shape buckets a session
   of ``n`` samples will need (spectrogram column batches, granular render,
   PV chunks) — run it in the background at file-open and the first
@@ -28,15 +28,38 @@ import threading
 
 _lock = threading.Lock()
 _enabled_dir: str | None = None
+_REPO_ROOT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+
+
+def default_cache_dir() -> str:
+    """The fixed in-checkout cache directory (listed in .gitignore).  A
+    path that never moves is part of every cache key that can hit."""
+    return os.path.join(_REPO_ROOT, ".jax_cache")
+
+
+def _cpu_only() -> bool:
+    """Is this session pinned to the CPU platform alone?"""
+    try:
+        import jax
+
+        platforms = jax.config.jax_platforms or os.environ.get(
+            "JAX_PLATFORMS", ""
+        )
+    except Exception:
+        platforms = os.environ.get("JAX_PLATFORMS", "")
+    return (platforms or "").strip().lower() == "cpu"
 
 
 def enable(cache_dir: str | None = None) -> str | None:
     """Point JAX's persistent compilation cache at a durable directory.
 
-    Returns the cache directory, or None when disabled via
-    ``MELONIX_XLA_CACHE=0`` or when the directory cannot be created.
-    Idempotent; safe to call before or after other jax.config use, but must
-    run before the first compile to benefit that compile.
+    ``JAX_COMPILATION_CACHE_DIR`` wins over everything, ``cache_dir`` next,
+    then ``default_cache_dir()``.  Returns the cache directory, or None when
+    disabled via ``MELONIX_XLA_CACHE=0``, on an implicit CPU-only session,
+    or when the directory cannot be created.  Idempotent; must run before
+    the first compile to benefit that compile.
     """
     global _enabled_dir
     with _lock:
@@ -44,26 +67,15 @@ def enable(cache_dir: str | None = None) -> str | None:
             return _enabled_dir
         if os.environ.get("MELONIX_XLA_CACHE", "1") == "0":
             return None
-        # CPU-only sessions (the test suite, the driver's virtual-mesh
-        # dryrun) skip the persistent cache unless a directory is named
-        # explicitly: CPU compiles are cheap, and XLA:CPU AOT results carry
-        # host machine features — an executable cached on one machine can
-        # SIGILL on another.  The cache's value is the remote TPU AOT
-        # round trip.
-        if cache_dir is None and not os.environ.get("MELONIX_XLA_CACHE_DIR"):
-            try:
-                import jax
-
-                platforms = jax.config.jax_platforms or os.environ.get(
-                    "JAX_PLATFORMS", ""
-                )
-            except Exception:
-                platforms = os.environ.get("JAX_PLATFORMS", "")
-            if (platforms or "").strip().lower() == "cpu":
-                return None
-        d = cache_dir or os.environ.get("MELONIX_XLA_CACHE_DIR") or os.path.join(
-            os.path.expanduser("~"), ".cache", "melonix_tpu", "xla"
-        )
+        env_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+        # CPU-only sessions (the test suite, the virtual-mesh dryrun) skip
+        # the persistent cache unless a directory is named explicitly:
+        # CPU compiles are cheap, and XLA:CPU AOT results carry host
+        # machine features — an executable cached on one machine can
+        # SIGILL on another.
+        if cache_dir is None and not env_dir and _cpu_only():
+            return None
+        d = env_dir or cache_dir or default_cache_dir()
         try:
             os.makedirs(d, exist_ok=True)
         except OSError:
@@ -71,28 +83,26 @@ def enable(cache_dir: str | None = None) -> str | None:
         import jax
 
         # Location metadata must not leak the CALLER into the cache key:
-        # lowered modules (and Mosaic custom-call payloads) embed the full
-        # stack trace of the tracing call, so the same program traced from
-        # the UI open path, the bench, and a script hashed to THREE
-        # different persistent-cache keys — each entry point re-paid the
-        # remote AOT compile (measured 1.4 s healthy, 550+ s during
-        # service-degradation episodes, for the tile program alone).
-        # Innermost-frame-only locations (the jitted function's own file)
-        # are identical from every caller, so one compile serves them all.
-        # MELONIX_FULL_TRACEBACK_LOCATIONS=1 restores full stacks for
-        # debugging sessions.
-        if os.environ.get("MELONIX_FULL_TRACEBACK_LOCATIONS", "0") != "1":
-            jax.config.update("jax_include_full_tracebacks_in_locations", False)
+        # lowered modules embed the full stack trace of the tracing call,
+        # so the same program traced from the UI open path, the bench and
+        # a script would hash to different persistent-cache keys and each
+        # entry point would compile it again.  Innermost-frame-only
+        # locations (the jitted function's own file) are identical from
+        # every caller, so one compile serves them all.
+        jax.config.update("jax_include_full_tracebacks_in_locations", False)
         jax.config.update("jax_compilation_cache_dir", d)
-        # Cache everything: the remote AOT round trip dominates even tiny
-        # programs, so the default 1 s / 4 KiB floors would skip most of the
-        # session's kernels.
+        # Cache everything: a fresh process (every CLI call, every bench
+        # run) starts with no compiled code, and the default 1 s / 4 KiB
+        # floors would skip most of the session's small programs.
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
         jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
         # With the floors at 0 every shape bucket lands on disk, so the
-        # directory would grow without bound across sessions (ADVICE r3
-        # #2): prune LRU by atime/mtime to a size cap on enable.
-        _prune_cache_dir(d)
+        # package's own directory would grow without bound across sessions
+        # (ADVICE r3 #2): prune it LRU by atime/mtime to a size cap.  A
+        # directory named by JAX_COMPILATION_CACHE_DIR belongs to whoever
+        # named it and is left alone.
+        if not env_dir:
+            _prune_cache_dir(d)
         _enabled_dir = d
         return d
 
@@ -186,17 +196,14 @@ def warmup_session(
 
             render_track_pv(zeros, knots)
             # The LIVE stream path jits its own entry points
-            # (pv_stream._advance_read/_advance_fused/_read_quantum/
+            # (pv_stream._advance_read/_advance_chunk/_read_quantum/
             # _wsum_stream).  Shapes are bucketed, but an EDIT restart
             # differs from the t=0 stream in two STATIC dimensions: the
             # download bucket out_n and _advance_read's tail flag (True
             # once the restart chunk is the track's last).  Warm every
             # read size the Player actually issues — an unwarmed bucket
-            # turns the first marker drag into a multi-second remote
-            # compile (BENCH r4 pre-fix: edit_to_audio_pv_ms 1996.6 vs
-            # ~68 warm; BENCH r5 pre-fix: 3835 ms when PV_LIVE_AHEAD —
-            # then 16384, imported below so the warm set tracks it —
-            # added an unwarmed burst-refill bucket).
+            # turns the first marker drag into a compile (PV_LIVE_AHEAD is
+            # imported below so the warm set tracks the refill policy).
             from ..engine.player import PV_FIRST_READ, PV_LIVE_AHEAD
             from ..engine.pv_stream import PvStream
 

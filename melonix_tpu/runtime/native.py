@@ -1,7 +1,7 @@
 """ctypes bindings to the native C++ runtime (native/libmelonix_native.so).
 
 The reference's runtime-side code is C++ (grain scan app.cpp:153-235, pyramid
-app.cpp:347-426, LRU caches spec.cpp:18-42); the TPU build keeps those
+app.cpp:347-426, LRU caches spec.cpp:18-42); this build keeps those
 host/control-plane pieces native too.  Everything here degrades gracefully to
 the NumPy implementations when the shared library has not been built.
 """

@@ -2,7 +2,7 @@
 
 The reference computes every visible column on demand with a fresh 32768-pt
 DFT (spec.cpp:44-66) — pan/zoom costs FFTs.  The pyramid inverts that: at
-file open, ONE pass of the fused Pallas STFT kernel materializes |STFT| at
+file open, ONE batched |STFT| pass (engine/spectral) materializes it at
 the base hop; coarser levels (hop_l = base_hop * 2^l) are *pairwise maxima
 over the frame axis* — the same blockwise reduce as the waveform min/max
 pyramid (app.cpp:347-378), built device-side in microseconds with no
@@ -13,9 +13,9 @@ sampling aliases.  After the build, any viewport at any zoom is a pure
 frames — no FFT ever runs again for display.
 
 Memory: a 3-minute 44.1 kHz track is ~64 MB at level 0 and ~128 MB across
-all levels — trivially HBM-resident.  A 3-hour track is ~2.5 GB: still fits
-a v5e chip, and levels shard naturally over the frame axis if it ever
-doesn't (parallel/sharded.sharded_stft_mags).
+all levels — trivially device-resident.  A 3-hour track is ~2.5 GB, and
+levels shard naturally over the frame axis where one device's memory is
+not enough (parallel/sharded.sharded_stft_mags).
 
 ``compute_columns`` speaks the TileServer ``compute`` protocol, so the
 pyramid plugs into the existing LRU + black-until-ready streaming contract:

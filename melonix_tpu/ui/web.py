@@ -1,7 +1,7 @@
 """Browser shell — the interactive front end (stdlib HTTP, zero deps).
 
 The reference is an SDL2/OpenGL/ImGui desktop binary (main.cpp:17-222).
-A TPU host is typically remote and headless, so the shell here is a tiny
+An accelerator host is typically remote and headless, so the shell here is a tiny
 HTTP server driving the same ``EditorState`` controller the desktop shell
 would: the browser shows the scene raster (ui/view.py), forwards
 mouse/keyboard events with the reference's button/modifier semantics
@@ -966,6 +966,7 @@ class EditorServer:
             self._httpd.server_close()
         if self.state._tile_server is not None:
             self.state._tile_server.close()
+        self.state.join_background()
 
 
 def serve(path: str | None = None, host: str = "127.0.0.1", port: int = 8666,

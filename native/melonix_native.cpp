@@ -2,9 +2,9 @@
 //
 // The reference implements its runtime in C++ (grain scan app.cpp:153-235,
 // min/max pyramid app.cpp:347-426, LRU caches spec.cpp:18-42, the
-// per-grain render walk app.cpp:294-345); the TPU build keeps these
-// host-side pieces native as well.  The *data plane* (FFTs, gather/lerp
-// rendering, pitch analysis) lives on the TPU — this library only does the
+// per-grain render walk app.cpp:294-345); this port keeps these host-side
+// pieces native as well.  The *data plane* (FFTs, gather/lerp rendering,
+// pitch analysis) lives on the accelerator — this library only does the
 // sequential control-plane work that feeds it: chain selection, plan
 // construction through the marker maps, cache bookkeeping, and lock-free
 // audio streaming.

@@ -2,7 +2,7 @@
 
 These are *oracles* for the test suite: straight-line loops that mirror the
 C++ control flow statement-for-statement (including float32 arithmetic where
-the reference uses float), so the vectorized/TPU engine can be validated
+the reference uses float), so the vectorized device engine can be validated
 against them.  They are intentionally slow and unidiomatic.
 """
 
@@ -287,6 +287,31 @@ def min_max_from_range(wav, picks, start, end):
         rmn, rmx = min_max_from_range(wav, picks, right_start, end)
         mn, mx = min(mn, rmn), max(mx, rmx)
     return (mn, mx)
+
+
+def render_plan_f32(wav, plan):
+    """Float32 evaluation of a granular render plan, one step at a time:
+    the reference's f32(i) * rate stepping, the lerp, and the next-grain
+    seam of app.cpp:312-329 — independent of the device's segmented
+    broadcasts.  Returns the grain output (no tail)."""
+    wav = np.asarray(wav, F32)
+    n = len(wav)
+    out = np.zeros(int(plan.out_offset[-1]) if len(plan.out_offset) else 0, F32)
+    for s in range(plan.n_steps):
+        sz = int(plan.sz[s])
+        o0 = int(plan.out_offset[s])
+        x = np.arange(sz, dtype=F32) * plan.rate[s]
+        idx = np.floor(x)
+        frac = (x - idx).astype(F32)
+        src = int(plan.grain_start[s]) + idx.astype(np.int64)
+        glen = int(plan.grain_len[s])
+        lo = wav[np.clip(src, 0, n - 1)]
+        seam = int(plan.seam_src[s])
+        hi_seam = wav[seam] if 0 <= seam < n else F32(0.0)
+        in_grain = idx.astype(np.int64) + 1 < glen
+        hi = np.where(in_grain, wav[np.clip(src + 1, 0, n - 1)], hi_seam)
+        out[o0:o0 + sz] = (F32(1.0) - frac) * lo + frac * hi
+    return out
 
 
 # ----------------------------------------------------------------------

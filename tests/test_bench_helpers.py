@@ -28,9 +28,8 @@ def test_device_ms_parser(tmp_path):
 
 
 def test_probe_service_answers_on_cpu(monkeypatch):
-    """The stall-gate probe: forced onto the CPU backend (the real TPU may
-    be mid-stall during a test run) the subprocess jit answers within one
-    attempt."""
+    """The device probe: forced onto the CPU backend (the suite never uses
+    an accelerator) the subprocess jit answers within one attempt."""
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

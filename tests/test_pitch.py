@@ -180,3 +180,54 @@ def test_hybrid_combiner_override_semantics(monkeypatch):
         c = P.pitch_curve(x, sr, method="hybrid", energy_threshold=0.0)
         got = float(c.f0[0])
         assert abs(got - want_hz) < 1e-6, (got, want_hz)
+
+
+def _nsdf_np(w, lag_min, lag_max):
+    """McLeod NSDF by its definition in float64: r(tau) / m(tau) with the
+    direct lag sums, then the same pick (local maxima in range, earliest
+    reaching 85% of the best, parabolic refinement)."""
+    w = w.astype(np.float64)
+    W = w.shape[1]
+    lags, clar = [], []
+    for x in w:
+        r = np.array([np.dot(x[: W - t], x[t:]) for t in range(W)])
+        c = np.cumsum(x * x)
+        m = np.array([c[W - t - 1] + (c[-1] - (c[t - 1] if t else 0.0))
+                      for t in range(W)])
+        nac = 2.0 * r / np.maximum(m, 1e-12)
+        prev = np.concatenate([nac[:1], nac[:-1]])
+        nxt = np.concatenate([nac[1:], nac[-1:]])
+        t = np.arange(W)
+        cand = np.where((t >= lag_min) & (t <= lag_max) & (nac > prev) & (nac >= nxt),
+                        nac, -1.0)
+        li = int(np.clip(np.argmax(cand >= 0.85 * cand.max()), 1, W - 2))
+        ym1, y0, yp1 = nac[li - 1], nac[li], nac[li + 1]
+        den = ym1 - 2 * y0 + yp1
+        d = 0.5 * (ym1 - yp1) / den if abs(den) > 1e-12 else 0.0
+        lags.append(li + np.clip(d, -0.5, 0.5))
+        clar.append(y0)
+    return np.array(lags), np.array(clar)
+
+
+@pytest.mark.parametrize("f0,harm", [(220.0, 0.0), (147.0, 0.6)])
+def test_nsdf_core_matches_numpy_f64(rng, f0, harm):
+    """The FFT autocorrelation (rfft -> power -> irfft) NSDF vs the direct
+    float64 lag sums, on a pure and a harmonic-rich tone with noise."""
+    import jax.numpy as jnp
+
+    from melonix_tpu.engine.pitch import pitch_core
+
+    sr, frame = 16000, 1024
+    t = np.arange(6 * frame) / sr
+    x = (np.sin(2 * np.pi * f0 * t) + harm * np.sin(2 * np.pi * 2 * f0 * t)
+         + 0.02 * rng.standard_normal(len(t)))
+    w = np.stack([x[i * 512: i * 512 + frame] for i in range(9)])
+    w = (w - w.mean(axis=1, keepdims=True)).astype(np.float32)
+    lag_min, lag_max = int(sr / 1000.0), int(sr / 60.0)
+    lag, clarity, energy = (np.asarray(a) for a in pitch_core(
+        jnp.asarray(w), frame, lag_min, lag_max))
+    want_lag, want_clar = _nsdf_np(w, lag_min, lag_max)
+    np.testing.assert_allclose(lag, want_lag, atol=2e-3)
+    np.testing.assert_allclose(clarity, want_clar, atol=1e-4)
+    np.testing.assert_allclose(energy, np.mean(w.astype(np.float64) ** 2, axis=1),
+                               rtol=1e-5)

@@ -122,9 +122,8 @@ def test_tail_read_near_bucket_boundary(monkeypatch):
     from melonix_tpu.engine import pv_stream as ps
 
     monkeypatch.setattr(ps, "OUT_BUCKET", 1 << 14)
-    from melonix_tpu.kernels import pallas_resample
+    from melonix_tpu.engine.phase_vocoder import BLK as blk
 
-    blk = pallas_resample.BLK
     q = ps.READ_BLOCKS * blk
     # n_out_pad = 8192-bucketed n_out; park it within one quantum below
     # the (shrunk) OUT_BUCKET so the pre-fix cap would hit zero.

@@ -83,3 +83,43 @@ def test_identity_render_reproduces_source(chirp):
     out = render_track(x, table, knots)
     end = int(table.starts[-1] + table.lengths[-1])
     np.testing.assert_allclose(out[:end], x[:end], atol=1e-6)
+
+
+@pytest.mark.parametrize("bend", [24.0, -24.0, 0.5])
+def test_render_device_extreme_bends_match_oracle(bend):
+    """Two-octave bends (the edit model's range) and a sub-semitone one,
+    held on a plateau: the device render vs the literal process() oracle."""
+    sr = 8000
+    t = np.arange(int(sr * 0.5)) / sr
+    x = (0.5 * np.sin(2 * np.pi * 210.0 * t)).astype(np.float32)
+    n = len(x)
+    markers = [Marker(n // 8, 57.0, 0.0, bend), Marker(7 * n // 8, 57.0, 0.0, bend)]
+    table = G.build_grain_table(x, backend="numpy")
+    knots = MapKnots.from_markers(markers, sr, n)
+    tup = [(m.sample, m.note, m.d_time, m.pitch_bend) for m in markers]
+    grains = list(zip(table.starts.tolist(), table.lengths.tolist()))
+    want = oracle.export(x, grains, tup, sr)
+    got = render_track(x, table, knots)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+def test_render_device_hour_length_plan():
+    """An hour-long plan at a reduced rate: 18M output samples, past the
+    2^24 where float32 sample positions stop being exact — the device's
+    int32 segmented broadcasts must still land every step on its grain
+    (vs the float32 per-step plan evaluation)."""
+    sr = 5000
+    n = 3600 * sr
+    period = 23  # 217.4 Hz; int arithmetic keeps the fixture exact
+    x = (0.4 * np.sin(2 * np.pi * (np.arange(n) % period) / period)).astype(np.float32)
+    markers = [Marker(int(i * n / 7), 57.0, 0.002 * (-1) ** i, 1.5 * (-1) ** i)
+               for i in range(1, 7)]
+    table = G.build_grain_table(x)
+    knots = MapKnots.from_markers(markers, sr, n)
+    plan = build_render_plan(table, knots)
+    assert int(plan.out_offset[-1]) > 1 << 24
+    got = render(x, plan, include_tail=False)
+    want = oracle.render_plan_f32(x, plan)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)

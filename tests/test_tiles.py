@@ -3,6 +3,7 @@
 import time
 
 import numpy as np
+import pytest
 
 import oracle
 from melonix_tpu.config import Config
@@ -192,8 +193,8 @@ def test_worker_survives_bad_batch():
 
 def test_busy_signal_during_stalled_batch():
     """stats()['busy_s'] exposes an in-flight device batch — the UI's only
-    feedback during a remote-service stall — and returns to 0 when the
-    batch lands (or fails)."""
+    feedback while a slow batch (a first compile) keeps tiles black — and
+    returns to 0 when the batch lands (or fails)."""
     import threading
     import time as _time
 
@@ -514,3 +515,29 @@ def test_tile_content_invariant_under_length_padding(chirp):
     finally:
         a.close()
         b.close()
+
+
+@pytest.mark.parametrize("span", [441, 30000])
+def test_reference_size_tiles_match_oracle(rng, span):
+    """Tiles at the reference's 32768-point columns: the device value
+    planes through the LUT vs the float64 oracle column, log-resampled and
+    colored by the literal colormap transcription."""
+    from melonix_tpu.runtime.tiles import log_resample_np
+
+    x = (0.5 * np.sin(np.arange(90000) * 0.05)
+         + 0.05 * rng.standard_normal(90000)).astype(np.float32)
+    cfg = Config(spectr_size=32768, max_ranges=16)
+    k = cfg.brightness_to_k()
+    ends = [40000, 70000, 95000]  # the last window runs past the track
+    srv = TileServer(x, k=k, config=cfg, synchronous=True)
+    tiles = srv.get_tiles([(i, e - span, e) for i, e in enumerate(ends)])
+    srv.close()
+    for tile, e in zip(tiles, ends):
+        mags = oracle.spec_column(x, e - span, e, cfg.spectr_size)[None, :]
+        texels = log_resample_np(mags, cfg.tile_texels, cfg.tile_frac_min)[0]
+        want = oracle.colormap(texels, k)
+        assert tile.shape == (cfg.tile_texels, 3) and tile.dtype == np.uint8
+        # Value planes quantize to uint8 before the LUT; adjacent LUT rows
+        # differ by <= 3 per component (the whitening arm).
+        diff = np.abs(tile.astype(int) - want.astype(int))
+        assert diff.max() <= 3, diff.max()
